@@ -1,6 +1,6 @@
-"""catch-tpu: a TPU-native probe-design engine.
+"""catch-tpu: a JAX probe-design engine.
 
-A from-scratch, TPU-first (JAX/XLA/pjit) framework with the
+A from-scratch JAX/XLA framework with the
 capabilities of broadinstitute/catch: design of compact DNA oligo probe
 sets that guarantee configurable coverage of diverse input genomes under
 a mismatch/longest-common-substring hybridization model, minimized via
@@ -28,36 +28,6 @@ Architecture (vs. the CPU reference at /root/reference):
 """
 
 __version__ = "0.1.0"
-
-import os as _os
-
-
-def _enable_persistent_xla_cache():
-    """Point JAX at a persistent compilation cache.
-
-    The greedy set-cover while-loop and the cover-scan tiles compile
-    once per power-of-two shape bucket; caching the executables across
-    processes removes minutes of XLA compile time from every run after
-    the first.  Opt out with CATCH_TPU_NO_XLA_CACHE=1; an explicit
-    JAX_COMPILATION_CACHE_DIR is respected.
-    """
-    if _os.environ.get("CATCH_TPU_NO_XLA_CACHE"):
-        return
-    try:
-        import jax
-        cache_dir = _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "catch_tpu", "xla"))
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
-
-
-_enable_persistent_xla_cache()
 
 from catch_tpu.genome import Genome
 from catch_tpu.probe import Probe

@@ -15,6 +15,8 @@ from catch_tpu.utils import log, seq_io, version
 
 
 def main(args):
+    from catch_tpu.utils.profiling import enable_compilation_cache
+    enable_compilation_cache()
     genomes_grouped = []
     genomes_grouped_names = []
     for ds in args.dataset:

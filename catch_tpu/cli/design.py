@@ -261,23 +261,18 @@ def main(args):
     # accelerators when more than one is visible.  With
     # jax.distributed initialized (see catch_tpu.parallel.distributed)
     # the mesh spans every process's devices.
+    import jax
+    from catch_tpu.parallel import make_mesh
     mesh = None
-    try:
-        import jax
-        from catch_tpu.parallel import make_mesh
-        n_dev = jax.device_count()
-        limit = args.num_devices if args.num_devices else n_dev
-        if args.max_num_processes is not None:
-            limit = min(limit, args.max_num_processes)
-        n_use = min(n_dev, limit)
-        if n_use > 1:
-            mesh = make_mesh(n_use)
-            logger.info("Sharding the scan and solve across %d devices",
-                        n_use)
-    except Exception:
-        logger.exception("Could not construct a device mesh; running "
-                         "single-device")
-        mesh = None
+    n_dev = jax.device_count()
+    limit = args.num_devices if args.num_devices else n_dev
+    if args.max_num_processes is not None:
+        limit = min(limit, args.max_num_processes)
+    n_use = min(n_dev, limit)
+    if n_use > 1:
+        mesh = make_mesh(n_use)
+        logger.info("Sharding the scan and solve across %d devices",
+                    n_use)
 
     scf = SetCoverFilter(
         mismatches=args.mismatches, lcf_thres=args.lcf_thres,

@@ -1,6 +1,6 @@
 """Filter pipeline: candidate generation and probe filters.
 
-The TPU-native equivalent of the reference's catch/filter package.
+The equivalent of the reference's catch/filter package.
 Filters share the BaseFilter contract (catch_tpu/filters/base.py);
 the compute-heavy filters (SetCoverFilter, AdapterFilter) drive the
 device cover engine (catch_tpu/ops/cover.py) and the device set-cover

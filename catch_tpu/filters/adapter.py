@@ -8,7 +8,7 @@ assignment may be flipped if that makes the cumulative plurality sum
 more decisive; final adapter per probe is the majority vote ('B' on
 ties, since the reference uses strict > for 'A').
 
-The cover finding reuses the TPU cover engine instead of the
+The cover finding reuses the device cover engine instead of the
 fork-based probe-finding pool.
 """
 

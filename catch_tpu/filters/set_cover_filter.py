@@ -7,11 +7,13 @@ coverage (fractional or bp), identification ranks, avoided-genome
 penalty ranks (tolerant hybridization model, both strands), and custom
 cover functions.
 
-TPU-native design: the cover engine (ProbeSearcher) replaces the k-mer
-map + fork pool; cover spans flow directly into flat interval arrays
+Design: the cover engine (ProbeSearcher) replaces the k-mer map + fork
+pool; on the default route the device scan (ops/scan_instance) builds
+each group's set-cover instance on device, and one compact readback
+feeds the lazy-greedy host solver.  The host route's cover spans flow
+directly into flat interval arrays
 (ops/set_cover.build_instance_from_cover_arrays) with no per-probe
-Python dict materialization; each group's greedy solve is one jitted
-while-loop on device (host mirror for tiny instances).
+Python dict materialization.
 """
 
 import logging
@@ -62,7 +64,7 @@ class SetCoverFilter(BaseFilter):
         more than one device, the cover scan verifies data-parallel
         across it and the greedy solve shards candidate sets over it
         (catch_tpu/parallel/set_cover.py) — the output probe set is
-        identical for every device count (the TPU analogue of the
+        identical for every device count (the counterpart of the
         reference's num_processes-invariance contract,
         reference test_set_cover_filter.py:134-175)."""
         self.mesh = mesh
@@ -285,7 +287,10 @@ class SetCoverFilter(BaseFilter):
         the corpus, candidate pairs, cover spans, and coverage state
         never leave the device; the host reads back per-dispatch
         scalars and the final pick list.  Returns chosen candidate ids
-        (np array) or None to fall back to the host instance path.
+        (np array), or None when the workload takes the host instance
+        route (custom model, small corpus, CATCH_TPU_INSTANCE=host, an
+        empty instance, or coordinates beyond int32).  Device faults
+        propagate.
         """
         import os
         import time as _time
@@ -305,54 +310,31 @@ class SetCoverFilter(BaseFilter):
         rank_idx = np.searchsorted(rank_vals, ranks).astype(np.int32)
         costs = np.ones(len(rank_idx), dtype=np.float32)
         t0 = _time.time()
-        r = None
-        cand0 = searcher.stats["candidates"]
-        for attempt in range(2):
-            try:
-                searcher.stats["candidates"] = cand0
-                r = scan_instance.scan_to_boundary_instance(
-                    searcher, sequences, seq_univ, seq_off, seq_len,
-                    len(target_genomes), self.cover_extension,
-                    universe_p, rank_idx, len(rank_vals), costs, pid_of)
-                break
-            except Exception:
-                if attempt == 0:
-                    # Transient runtime faults (e.g. a dropped remote-
-                    # compile connection) are worth one retry before
-                    # paying for the much slower host scan.
-                    logger.exception("Device instance pipeline failed; "
-                                     "retrying once")
-                    continue
-                logger.exception("Device instance pipeline failed "
-                                 "again; falling back to the host path")
-                return None
+        r = scan_instance.scan_to_boundary_instance(
+            searcher, sequences, seq_univ, seq_off, seq_len,
+            len(target_genomes), self.cover_extension,
+            universe_p, rank_idx, len(rank_vals), costs, pid_of)
         stats["scan_seconds"] += _time.time() - t0
         if r is None:
             return None
         dev, perm = r
         t0 = _time.time()
-        try:
-            if os.environ.get("CATCH_TPU_SOLVE") == "device":
-                # All-device greedy: only pick ids leave the device.
-                # Slower per pick than the lazy host solver (each step
-                # rescans the instance), but independent of host
-                # readback bandwidth; kept for validation and for
-                # hosts where the readback would dominate.
-                order = set_cover.solve_boundary_instance(dev, len(perm))
-                chosen = pid_of[perm[order]] if len(order) else \
-                    np.empty(0, dtype=np.int64)
-            else:
-                # Default: one compact readback of the merged instance,
-                # then the lazy-greedy host solver (identical picks).
-                from catch_tpu.ops import scan_instance
-                inst = scan_instance.instance_to_host(
-                    dev, perm, pid_of, len(rank_idx), rank_idx,
-                    len(rank_vals), costs)
-                chosen = set_cover.solve_instance(inst)
-        except Exception:
-            logger.exception("Solve on the device instance failed; "
-                             "falling back to the host path")
-            return None
+        if os.environ.get("CATCH_TPU_SOLVE") == "device":
+            # All-device greedy: only pick ids leave the device.
+            # Slower per pick than the lazy host solver (each step
+            # rescans the instance), but independent of host readback
+            # bandwidth; kept for validation and for instances whose
+            # readback would dominate.
+            order = set_cover.solve_boundary_instance(dev, len(perm))
+            chosen = pid_of[perm[order]] if len(order) else \
+                np.empty(0, dtype=np.int64)
+        else:
+            # Default: one compact readback of the merged instance,
+            # then the lazy-greedy host solver (identical picks).
+            inst = scan_instance.instance_to_host(
+                dev, perm, pid_of, len(rank_idx), rank_idx,
+                len(rank_vals), costs)
+            chosen = set_cover.solve_instance(inst)
         stats["solve_seconds"] += _time.time() - t0
         stats["set_cover_picks"] += len(chosen)
         return np.asarray(chosen, dtype=np.int64)
@@ -382,9 +364,10 @@ class SetCoverFilter(BaseFilter):
             ranks = self._make_ranks(possible_probes,
                                      target_genomes_grouped)
             universe_p = self._make_universe_p(target_genomes)
-            # Snapshot the searcher's candidate counter: a failed
-            # device attempt has already counted its candidates, and
-            # the host fallback scan would count the group again.
+            # Snapshot the searcher's candidate counter: a device scan
+            # that hands the group to the host route (empty instance,
+            # int32 guard) has already counted its candidates, and the
+            # host scan would count the group again.
             cand_before = prepared[0].stats["candidates"]
             chosen = self._solve_group_device(
                 prepared, target_genomes, ranks, universe_p, stats)

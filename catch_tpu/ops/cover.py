@@ -4,8 +4,8 @@ Replaces the reference's hash-map seeding + per-candidate anchored-LCS
 scan (/root/reference/catch/probe.py:356-1271 and
 /root/reference/catch/utils/longest_common_substring.py:59-158) with a
 two-phase design.  This module holds the per-sequence host
-implementation (the oracle for tiny workloads, custom models, and
-fallback); ops/scan_sparse batches phase 2 on device, and
+implementation (the oracle for tiny workloads and custom models);
+ops/scan_sparse batches phase 2 on device, and
 ops/scan_instance runs the entire scan device-resident for the design
 pipeline.
 
@@ -42,7 +42,6 @@ window) and phase 2 is skipped.
 
 from collections import defaultdict
 import functools
-import logging
 import os
 
 import numpy as np
@@ -51,8 +50,6 @@ import jax.numpy as jnp
 
 from catch_tpu.ops import encode
 from catch_tpu.utils import intervals
-
-logger = logging.getLogger(__name__)
 
 __all__ = [
     "CoverModel", "ProbeSearcher", "choose_seed_length",
@@ -118,7 +115,7 @@ def probe_covers_sequence_by_longest_common_substring(
         mismatches, lcf_thres, island_of_exact_match=0):
     """Host closure with the reference cover-model contract.
 
-    Provided for API parity and for oracle tests; the TPU engine encodes
+    Provided for API parity and for oracle tests; the cover engine encodes
     the same model directly (see module docstring).
     """
     from catch_tpu.utils import lcs
@@ -145,7 +142,7 @@ def probe_covers_sequence_by_longest_common_substring(
 class ProbeSearcher:
     """Finds cover ranges of a fixed probe set in target sequences.
 
-    The TPU-native replacement for the reference's probe-finding pool
+    The replacement for the reference's probe-finding pool
     protocol (open_probe_finding_pool / find_probe_covers_in_sequence /
     close_probe_finding_pool, /root/reference/catch/probe.py:782-1271):
     construct once per probe set, then query per sequence.  No pool
@@ -268,7 +265,7 @@ class ProbeSearcher:
     # The sparse phase-1 predicate (overlap + match count) is then
     # evaluated only on joined pairs.
     #
-    # This is the TPU-era replacement of the reference's k-mer hash map
+    # This replaces the reference's k-mer hash map
     # (/root/reference/catch/probe.py:356-577): deterministic and
     # exhaustive (recall >= the reference's Monte-Carlo sampling),
     # vectorized end to end, no shared-memory fork protocol.
@@ -652,10 +649,7 @@ class ProbeSearcher:
     # batched scan (corpus-wide k-mer join + device verify chunks,
     # ops/scan_sparse).  Below it, the per-sequence host path wins:
     # tiny workloads are dominated by device dispatch and the
-    # verify-chunk compile.  (Round 1's dense alignment-tile megakernel
-    # — 35x slower than host, faulted the TPU — is gone; the sparse
-    # path does the same join as the host path and only moves the
-    # vectorized window verification onto the device.)
+    # verify-chunk compile.
     _BATCH_MIN_BP = 1 << 19
 
     def find_probe_covers_flat(self, sequences, force_batch=None):
@@ -681,15 +675,7 @@ class ProbeSearcher:
             use_batch = False
         if use_batch:
             from catch_tpu.ops import scan_sparse
-            try:
-                r = scan_sparse.scan_corpus_sparse(self, sequences)
-            except Exception:
-                # A device fault (OOM, kernel fault) must never kill a
-                # design run; degrade to the per-sequence path.
-                logger.exception(
-                    "Batched device scan failed; falling back to the "
-                    "per-sequence path")
-                r = None
+            r = scan_sparse.scan_corpus_sparse(self, sequences)
             if r is not None:
                 return r
         out_p, out_i, out_s, out_e = [], [], [], []

@@ -1,4 +1,4 @@
-"""Sequence encoding for the TPU engine.
+"""Sequence encoding for the cover engine.
 
 Sequences and probes are byte strings over an arbitrary uppercase
 alphabet (real genomes use A/C/G/T/N after seq_io normalization; the

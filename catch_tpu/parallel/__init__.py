@@ -17,7 +17,8 @@ are jax.sharding over a Mesh:
 Multi-host: catch_tpu/parallel/distributed.py initializes a
 jax.distributed process group from the environment, after which
 make_mesh() spans every host's devices and the same sharded code paths
-run with DCN carrying only per-iteration scalars.
+run with the network between hosts carrying only per-iteration
+scalars.
 """
 
 from catch_tpu.parallel.mesh import make_mesh

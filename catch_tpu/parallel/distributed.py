@@ -1,8 +1,8 @@
 """Multi-host (multi-process) execution entry point.
 
 The reference's scale-out story is a single host's fork pools
-(/root/reference/catch/probe.py:766-894).  The TPU-native story is a
-jax.distributed process group: each host owns a slice of the chips,
+(/root/reference/catch/probe.py:766-894).  Here it is a
+jax.distributed process group: each host owns a slice of the devices,
 `jax.device_count()` reports the GLOBAL device count, and one
 `jax.sharding.Mesh` built from `jax.devices()` spans every host
 (catch_tpu/parallel/mesh.py builds exactly that — jax.devices() is the
@@ -12,11 +12,13 @@ Layout for the probe-design pipeline over such a mesh:
 - The corpus and probe tensors are replicated per host (they are MBs);
   candidate verification shards over the global device axis
   (ops/scan_sparse._verify_chunk_sharded), which is pure data
-  parallelism — no collectives, so nothing rides DCN during the scan.
+  parallelism — no collectives, so nothing crosses hosts during the
+  scan.
 - The greedy solve shards the position axis; each iteration reduces
   per-set scores with jax.lax.psum and broadcasts one chosen id
-  (catch_tpu/parallel/set_cover.py), so DCN carries only per-iteration
-  scalars — the design point SURVEY.md §5 calls for.
+  (catch_tpu/parallel/set_cover.py), so the network between hosts
+  carries only per-iteration scalars — the design point SURVEY.md §5
+  calls for.
 
 Single-host runs need none of this: maybe_initialize() is a no-op
 unless the standard coordination environment is present, and every
@@ -29,8 +31,9 @@ Launch example (2 hosts):
            CATCH_TPU_PROCESS_ID=0 design.py ...
     host1$ CATCH_TPU_COORDINATOR=host0:8476 CATCH_TPU_NUM_PROCESSES=2 \
            CATCH_TPU_PROCESS_ID=1 design.py ...
-On Cloud TPU pods, jax.distributed.initialize() auto-detects all three
-values and the variables can be omitted entirely (set
+On a GPU cluster launched through SLURM or Open MPI,
+jax.distributed.initialize() detects all three values from the
+launcher's environment and the variables can be omitted (set
 CATCH_TPU_MULTIHOST=1 to request initialization in that case).
 """
 
@@ -50,8 +53,9 @@ def maybe_initialize():
 
     Reads CATCH_TPU_COORDINATOR (host:port), CATCH_TPU_NUM_PROCESSES,
     and CATCH_TPU_PROCESS_ID; or just CATCH_TPU_MULTIHOST=1 to let JAX
-    auto-detect (TPU pod metadata).  No-op when none are set, so
-    single-host users never pay for or see any of this.
+    detect them (SLURM or Open MPI launch environment).  No-op when
+    none are set, so single-host users never pay for or see any of
+    this.
 
     Returns True when running with an initialized process group.
     """

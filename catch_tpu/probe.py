@@ -10,7 +10,7 @@ sequence, so output FASTA headers match reference headers bit-for-bit).
 
 Design difference: sequences are stored as uint8 ASCII arrays (one byte
 per base) rather than numpy 'U1' (4 bytes/char).  This is the same
-encoding the TPU engine consumes (catch_tpu/ops/encode.py), so handing a
+encoding the cover engine consumes (catch_tpu/ops/encode.py), so handing a
 batch of probes to the device is a single stack+pad, no re-encoding.
 """
 

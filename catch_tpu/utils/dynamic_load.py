@@ -3,7 +3,7 @@
 The plug-in mechanism for custom hybridization models (parity:
 /root/reference/catch/utils/dynamic_load.py:10-55).  A custom cover
 function runs on the host per candidate (probe, alignment) pair; the
-TPU engine calls back into it for candidates surviving the seed
+cover engine calls back into it for candidates surviving the seed
 prefilter (see catch_tpu/ops/cover.py).
 """
 

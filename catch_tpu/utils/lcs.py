@@ -12,7 +12,7 @@ reference's diagonal-scan algorithms
   (length, start).
 
 These run on the host and serve three roles: (1) oracle for property
-tests of the TPU cover kernel, (2) the inner comparator for host-side
+tests of the device cover kernel, (2) the inner comparator for host-side
 filters (PolyAFilter, NaiveRedundantFilter), (3) the plug-in point where
 the default hybridization model's semantics are defined exactly once.
 
@@ -21,7 +21,7 @@ diagonal's longest <=k-mismatch run is computed from the sorted mismatch
 positions: with sentinel-padded mismatch positions P (P[0] = -1,
 P[nm+1] = n), the maximal windows are (P[t], P[t+k+1]) exclusive and the
 answer is max_t of P[t+k+1] - P[t] - 1.  The same "maximal window"
-formulation is what the TPU verify kernel uses (catch_tpu/ops/cover.py),
+formulation is what the device verify kernel uses (catch_tpu/ops/cover.py),
 so the oracle and the kernel share their math.
 """
 

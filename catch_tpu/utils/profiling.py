@@ -1,13 +1,10 @@
-"""Profiling hooks (SURVEY.md §5: the reference has none; the TPU
-build adds real jax.profiler tracing).
+"""Profiling hooks and the persistent compilation cache (SURVEY.md
+§5: the reference has none; this build adds jax.profiler tracing).
 
 Set CATCH_TPU_PROFILE_DIR=/path to capture one trace per hot region
 (cover scan, set-cover solve) into that directory on the region's
 first execution; view with TensorBoard or xprof.  Unset (the default)
 the hooks are free.
-
-Round-2 profile summary of the flagship bench (ebola175, one v5e chip)
-lives in PROFILE.md at the repo root.
 """
 
 import contextlib
@@ -45,36 +42,39 @@ def snapshot_phases():
         return {k: round(v, 2) for k, v in phase_seconds.items()}
 
 
-def enable_compilation_cache(path=None):
+# Fixed cache location inside the checkout (listed in .gitignore): a
+# path that moved between runs would never hit.
+_CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
+
+
+def compilation_cache_dir():
+    """Directory of JAX's persistent compilation cache:
+    JAX_COMPILATION_CACHE_DIR when set, else .jax_cache in the
+    checkout."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or _CHECKOUT_CACHE_DIR)
+
+
+def enable_compilation_cache():
     """Enable JAX's persistent compilation cache for this process.
 
-    XLA compiles of the scan/solve kernels cost tens of seconds on a
-    TPU backend; the shapes are deterministic per workload, so a
-    disk-backed cache makes every run after the first start hot.
-    Called by the CLI entry points and bench.py (not at library import,
-    which must stay side-effect free).  Opt out with
-    CATCH_TPU_NO_COMPILE_CACHE=1.
+    The scan and solve programs compile once per power-of-two shape
+    bucket, so a disk-backed cache makes every run after the first
+    start hot.  Called by the CLI entry points, bench.py and
+    chip_smoke.py (not at library import, which must stay side-effect
+    free).  Opt out with CATCH_TPU_NO_COMPILE_CACHE=1.
     """
-    if os.environ.get("CATCH_TPU_NO_COMPILE_CACHE") \
-            or os.environ.get("CATCH_TPU_NO_XLA_CACHE"):
+    if os.environ.get("CATCH_TPU_NO_COMPILE_CACHE"):
         return
-    if path is None:
-        # Same location the package __init__ configures at import, so
-        # every entry point shares one cache.
-        path = os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(os.path.expanduser("~"), ".cache",
-                         "catch_tpu", "xla"))
-    try:
-        import jax
+    import jax
 
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:
-        logger.exception("Could not enable the persistent compilation "
-                         "cache; continuing without it")
+    path = compilation_cache_dir()
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 
 @contextlib.contextmanager

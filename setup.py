@@ -1,4 +1,4 @@
-"""catch-tpu: TPU-native probe design engine."""
+"""catch-tpu: JAX probe design engine."""
 
 from setuptools import find_packages, setup
 
@@ -10,7 +10,7 @@ setup(
     packages=find_packages(exclude=["tests", "tests.*"]),
     install_requires=["numpy>=1.22", "scipy>=1.8.0", "jax>=0.4.20"],
     author="catch-tpu contributors",
-    description=("TPU-native design of compact, comprehensive probe sets "
+    description=("Accelerated design of compact, comprehensive probe sets "
                  "for hybrid capture of diverse genomes"),
     python_requires=">=3.10",
     entry_points={

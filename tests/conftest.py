@@ -1,6 +1,6 @@
 """Test configuration: run JAX on a virtual 8-device CPU mesh.
 
-Tests must not depend on TPU availability; multi-chip sharding tests use
+Tests must not depend on an accelerator; multi-chip sharding tests use
 the forced host-platform device count.  Must run before jax is imported.
 """
 

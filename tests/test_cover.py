@@ -1,4 +1,4 @@
-"""Tests for the TPU cover engine (catch_tpu.ops.cover).
+"""Tests for the cover engine (catch_tpu.ops.cover).
 
 Includes a brute-force oracle implementing the engine's declared
 semantics (all maximal <=m-mismatch windows containing a k_seed match

@@ -1,8 +1,8 @@
 """Real multi-process validation of the multi-host path.
 
 Launches 2 jax.distributed CPU processes on localhost (the coordinator
-plumbing of catch_tpu/parallel/distributed.py, exactly as a 2-host TPU
-pod run would use it), runs the same small design in both over the
+plumbing of catch_tpu/parallel/distributed.py, exactly as a 2-host GPU
+cluster run would use it), runs the same small design in both over the
 4-device global mesh, and asserts the probe set equals the
 single-process run — the contract the reference pins across worker
 counts (reference test_set_cover_filter.py:134-175), here across

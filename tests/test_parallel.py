@@ -1,6 +1,6 @@
 """Multi-device equivalence tests on the virtual 8-device CPU mesh.
 
-The TPU analog of the reference's "same output for num_processes in
+The counterpart of the reference's "same output for num_processes in
 {None,1,2,4}" tests (/root/reference/catch/filter/tests/
 test_set_cover_filter.py:134-175): device count must not change results.
 """
@@ -74,7 +74,7 @@ def test_make_mesh_too_many_devices():
 
 class TestShardedPipeline(unittest.TestCase):
     """The real SetCoverFilter pipeline emits an identical probe set for
-    every device count (the TPU analogue of the reference's
+    every device count (the counterpart of the reference's
     num_processes-invariance contract, test_set_cover_filter.py:134-175)."""
 
     def test_set_cover_filter_mesh_invariance(self):

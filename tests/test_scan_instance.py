@@ -231,7 +231,7 @@ def test_device_pipeline_sharded_over_mesh(small_shapes, monkeypatch,
                                            n_devices):
     """The device-resident instance pipeline shards stages A/B/C over
     the mesh (round-robin dispatch placement) and must produce the
-    bit-identical probe set at any device count — the TPU analogue of
+    bit-identical probe set at any device count — the counterpart of
     the reference's num_processes-invariance contract
     (reference test_set_cover_filter.py:134-175)."""
     from catch_tpu.parallel import make_mesh

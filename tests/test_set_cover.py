@@ -1,4 +1,4 @@
-"""Tests for the TPU-native set-cover solver.
+"""Tests for the device set-cover solver.
 
 Expectations ported from the reference's behavioral contract
 (/root/reference/catch/utils/tests/test_set_cover.py): golden outputs on
